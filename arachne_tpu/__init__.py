@@ -1,6 +1,6 @@
-"""arachne-tpu: a TPU-native linked-read aligner.
+"""arachne-tpu: a linked-read aligner on JAX, for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 pdimens/arachne (the Go+BWA successor of 10x Genomics Lariat): barcode-joint
 alignment of paired-end linked reads (haplotagging / stLFR / TELLseq) with
 molecule inference (RFA) and molecule-aware MAPQ, emitting sharded BAM/SAM.
@@ -10,7 +10,8 @@ Layers (bottom to top; see SURVEY.md for the reference layer map):
   index/     FM-index construction + queries (replaces bwt.c/bntseq.c/bwa.c)
   align/     candidate generation: SMEM seeding, chaining, extension DP,
              mate rescue, CIGAR (replaces bwamem.c/bwamem_pair.c/ksw.c)
-  ops/       Pallas TPU kernels for the hot DP + rank-query paths
+  ops/       batched device DP (XLA) and device rank queries; the
+             batched engine
   rfa/       barcode-joint molecule inference, optimizer, MAPQ, dup, split
              (replaces src/aligner + src/optimizer)
   io/        FASTQ streaming/barcode grouping, format standardization,

@@ -11,7 +11,7 @@ These reproduce the reference's alignment kernels cell-for-cell:
   * ``align2``   — local SW + reverse second pass for start coordinates
                    (ksw.c:343-365 ksw_align2).
 
-They are the ground truth the Pallas TPU kernels (ops/) are tested against,
+They are the ground truth the device kernels (ops/) are tested against,
 and the host fallback for odd-shaped problems.  Inner rows are vectorized
 with numpy using an exact prefix-scan formulation of the F (gap-in-query)
 dependency; all tie-breaking, early-exit and band-shrink behaviors match
@@ -207,8 +207,9 @@ def global2(
         # e bits: (E - e_del) > (M - oe_del) -> 1<<2
         newE = np.maximum(E - e_del, M - oe_del)
         d |= ((E - e_del) > (M - oe_del)).astype(np.uint8) << 2
-        # f bits: (F - e_ins) > (M - oe_ins) -> 2<<4
-        d |= ((F - e_ins) > (M - oe_ins)).astype(np.uint8) << 4
+        # f bits: (F - e_ins) > (M - oe_ins) -> 2<<4 (ksw.c: a traceback in
+        # the F state reads bits 4-5 and must read 2 to stay in it)
+        d |= ((F - e_ins) > (M - oe_ins)).astype(np.uint8) << 5
         if want_cigar:
             z[i, : n] = d
         ehe[sl] = newE

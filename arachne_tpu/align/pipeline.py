@@ -7,7 +7,7 @@ other (score_delta window, <=50 rescue rounds per side).
 ``EasyAlignment``        = the cgo bridge's interpreted hit (gobwa.go:339-371).
 
 The extension DP is pluggable (see extend.chain2aln) so this same driver
-runs either the scalar oracle or the batched TPU kernels.
+runs either the scalar oracle or the batched device kernels.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ Reproduces the reference's three-pass seed collection
           when max_mem_intv > 0.
 
 This host implementation drives the batched FMIndex rank queries; the
-fully-batched TPU formulation lives in ops/fm_rank.py and is verified
+fully-batched device formulation lives in ops/fm_rank.py and is verified
 against this one.
 """
 

@@ -160,9 +160,9 @@ class IndexOptions:
 
 @dataclass(frozen=True)
 class PipelineOptions:
-    """Batching/execution options for the TPU pipeline."""
+    """Batching/execution options for the device pipeline."""
 
-    engine: str = "auto"          # "oracle" (scalar host), "tpu" (batched), "auto"
+    engine: str = "auto"          # "oracle" (scalar host), "tpu" (batched device engine), "auto"
     reads_per_batch: int = 4096   # read pairs per superbatch (device dispatch unit)
     num_workers: int = 2          # host worker threads (-t/--threads)
     checkpoint_path: Optional[str] = None

@@ -1,6 +1,6 @@
 """Reference packing and FM-index construction.
 
-TPU-native replacement for the index layer the reference consumes but does
+Replacement for the index layer the reference consumes but does
 not build (it requires prebuilt ``bwa index`` output on disk;
 gobwa.go:128-147, SURVEY.md 2.3).  We implement the full construction
 pipeline ourselves:
@@ -12,7 +12,7 @@ pipeline ourselves:
     numpy prefix doubling (replaces is.c SA-IS; same output).
   * BWT + occ checkpoints in a device-friendly planar layout (the
     reference interleaves counts into the bwt words, bwt.h:72-78; we keep
-    separate dense arrays that upload directly to TPU HBM).
+    separate dense arrays that upload directly to device memory).
   * Sampled and/or full suffix-array storage.
 
 Everything here is host-side construction; queries live in fmindex.py.

@@ -3,7 +3,7 @@
 Implements the reference's rank/SA machinery (bwt.c) and reference-store
 coordinate functions (bntseq.c) with *vectorized batch* signatures: every
 query takes arrays of positions so thousands of seeding states advance per
-call.  The same data layout is uploaded to TPU HBM for the JAX/Pallas path
+call.  The same data layout is uploaded to device memory for the JAX path
 (ops/fm_rank.py).
 
 Coordinate convention (inherited): positions live on the forward+reverse-

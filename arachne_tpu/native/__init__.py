@@ -1,22 +1,31 @@
 """Native (C++) host components, loaded via ctypes.
 
-Compiled on demand with g++ into a cached shared library; everything has a
-pure-numpy fallback so the package works without a toolchain.
+Compiled by g++ from the sources in this directory into ``build/``
+(gitignored), once per content hash of the sources.  Without a toolchain
+the host paths fall back to pure numpy; the device engine, which needs
+the native seeding, chaining and RFA tail on a GPU, calls ``require_lib``
+so that a build or load failure there is an error, not a slowdown.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
-from typing import Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_DIR, "_arachne_native.so")
+# a prebuilt library to load instead of building one (the sanitizer tests
+# point this at an instrumented build)
+_LIB_PATH: Optional[str] = None
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_error: Optional[str] = None
 
 
 _SOURCES = [
@@ -31,210 +40,216 @@ _SOURCES = [
 _EXPECTED_ABI = 8
 
 
-def _build() -> Optional[str]:
+def cached_build(
+    stem: str,
+    sources: List[str],
+    command: Callable[[str], List[str]],
+    out_dir: str,
+) -> str:
+    """Compile ``sources`` once per content hash; returns the library path.
+
+    The name carries a hash of the sources, the compile command and the
+    host's machine type, so a checkout never loads a library built from
+    other sources.  A file lock serialises concurrent builders (one
+    process per card may start at once); the output is renamed into place
+    only when complete.  A failed compile raises RuntimeError with the
+    compiler's message."""
+    h = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(command("OUT")).encode())
+    h.update(platform.machine().encode())
+    path = os.path.join(out_dir, f"{stem}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f".{stem}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = path + ".part"
+            try:
+                proc = subprocess.run(command(tmp), capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"building {stem}: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building {stem} failed (rc={proc.returncode}):\n"
+                    f"{proc.stderr[-4000:]}"
+                )
+            os.replace(tmp, path)
+    return path
+
+
+def _build() -> str:
     srcs = [os.path.join(_DIR, s) for s in _SOURCES]
-    srcs = [s for s in srcs if os.path.exists(s)]
-    if not srcs:
-        return None
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-             "-o", _LIB_PATH] + srcs,
-            check=True,
-            capture_output=True,
-        )
-        return _LIB_PATH
-    except Exception:
-        return None
+    return cached_build(
+        "arachne_native",
+        srcs,
+        lambda out: ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                     "-pthread", "-o", out] + srcs,
+        os.path.join(_DIR, "build"),
+    )
 
 
-def _fresh() -> bool:
-    """The cached .so is newer than every source file."""
-    if not os.path.exists(_LIB_PATH):
-        return False
-    so_m = os.path.getmtime(_LIB_PATH)
-    for s in _SOURCES:
-        p = os.path.join(_DIR, s)
-        if os.path.exists(p) and os.path.getmtime(p) > so_m:
-            return False
-    return True
+def require_lib() -> ctypes.CDLL:
+    """The native library, or RuntimeError saying why it is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"native host library unavailable: {_error}")
+    return lib
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, _error
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    path = _LIB_PATH if _fresh() else _build()
-    if path is None and os.path.exists(_LIB_PATH):
-        # rebuild failed (no toolchain / transient error) but a loadable
-        # library exists — use it; the per-symbol hasattr guards below
-        # handle any functions it predates
-        path = _LIB_PATH
-    if path is None:
-        return None
     try:
-        lib = ctypes.CDLL(path)
-        if not hasattr(lib, "arachne_native_abi"):
-            return None  # pre-ABI stale .so: fall back to host paths
+        lib = ctypes.CDLL(_LIB_PATH or _build())
         lib.arachne_native_abi.restype = ctypes.c_int64
         if lib.arachne_native_abi() != _EXPECTED_ABI:
-            return None  # stale .so with a different ABI: unsafe to bind
-        lib.sais_u8_i64.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64,
-            ctypes.c_int64,
-        ]
-        lib.sais_u8_i64.restype = ctypes.c_int
-        lib.sais_u8_i32.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int32,
-            ctypes.c_int32,
-        ]
-        lib.sais_u8_i32.restype = ctypes.c_int
-        try:
-            lib.sais_ref_u8_i64.argtypes = lib.sais_u8_i64.argtypes
-            lib.sais_ref_u8_i64.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without the parity oracle
-        try:
-            lib.smem_collect_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32),   # words
-                ctypes.c_int64,                    # n_words
-                ctypes.POINTER(ctypes.c_int64),    # occ
-                ctypes.POINTER(ctypes.c_int64),    # L2
-                ctypes.c_int64,                    # primary
-                ctypes.c_int64,                    # seq_len
-                ctypes.POINTER(ctypes.c_uint8),    # qs
-                ctypes.POINTER(ctypes.c_int32),    # qlens
-                ctypes.c_int32,                    # n_reads
-                ctypes.c_int32,                    # L
-                ctypes.c_int32,                    # min_seed_len
-                ctypes.c_int32,                    # split_len
-                ctypes.c_int32,                    # split_width
-                ctypes.c_int64,                    # max_mem_intv
-                ctypes.POINTER(ctypes.c_int64),    # out
-                ctypes.POINTER(ctypes.c_int32),    # out_n
-                ctypes.POINTER(ctypes.c_uint8),    # overflow
-                ctypes.c_int32,                    # MAXS
-                ctypes.c_int32,                    # n_threads
-            ]
-            lib.smem_collect_batch.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without smem support; sais still usable
-        try:
-            u32p = ctypes.POINTER(ctypes.c_uint32)
-            i64p_ = ctypes.POINTER(ctypes.c_int64)
-            lib.sa_batch.argtypes = [
-                u32p, ctypes.c_int64, i64p_, i64p_,       # words, n_words, occ, L2
-                ctypes.c_int64, ctypes.c_int64,           # primary, seq_len
-                i64p_, ctypes.c_int64,                    # sampled, sa_intv
-                i64p_, ctypes.c_int64, i64p_,             # rows, n, out
-                ctypes.c_int32,                           # n_threads
-            ]
-            lib.sa_batch.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without sa support
-        try:
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            i64p = ctypes.POINTER(ctypes.c_int64)
-            f64p = ctypes.POINTER(ctypes.c_double)
-            lib.chain_batch.argtypes = [
-                i64p, i32p, i32p, i64p,          # mem_s/qb/qe, mem_off
-                i64p, i64p, i32p, i32p, i64p,    # occ rbeg/rid/qbeg/len, occ_off
-                i32p,                            # qlen
-                ctypes.c_int32, ctypes.c_int64,  # n_reads, l_pac
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,   # w, gap, max_occ
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,   # min_w, min_seed, max_ext
-                ctypes.c_double, ctypes.c_double,                  # mask, drop
-                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,   # a, o_del, e_del
-                ctypes.c_int32, ctypes.c_int32,                    # o_ins, e_ins
-                i32p,                            # out_nchains
-                i64p, i32p, i32p, i32p, f64p, i32p,   # chain pos/rid/w/kept/frac/nseeds
-                i64p, i64p, i32p,                # rmax0, rmax1, seed_idx
-                ctypes.c_int32,                  # n_threads
-            ]
-            lib.chain_batch.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without chain support
-        try:
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            i64pp = ctypes.POINTER(ctypes.c_int64)
-            lib.rb_bwt_build.argtypes = [
-                u8p, ctypes.c_int64, u8p, i64pp, i64pp,
-            ]
-            lib.rb_bwt_build.restype = ctypes.c_int
-            lib.sa_sample_walk.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                i64pp, i64pp,                       # occ, L2
-                ctypes.c_int64, ctypes.c_int64,     # primary, seq_len
-                ctypes.c_int64, i64pp,              # sa_intv, out
-            ]
-            lib.sa_sample_walk.restype = ctypes.c_int
-            lib.sa_sample_walk_par.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                i64pp, i64pp,                       # occ, L2
-                ctypes.c_int64, ctypes.c_int64,     # primary, seq_len
-                ctypes.c_int64, i64pp,              # sa_intv, out
-                u8p,                                # pac2 (2-bit text)
-                ctypes.c_int32, ctypes.c_int32,     # n_chunks, n_threads
-                i64pp,                              # progress
-            ]
-            lib.sa_sample_walk_par.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without incremental-build support
-        try:
-            i32 = ctypes.c_int32
-            i32p_ = ctypes.POINTER(ctypes.c_int32)
-            i64p2 = ctypes.POINTER(ctypes.c_int64)
-            f64p2 = ctypes.POINTER(ctypes.c_double)
-            u8p2 = ctypes.POINTER(ctypes.c_uint8)
-            u64p2 = ctypes.POINTER(ctypes.c_uint64)
-            lib.rfa_tail.argtypes = (
-                [i32, i32]
-                + [i64p2, i64p2, f64p2, f64p2]            # pos/aend/logp/score
-                + [i32p_] * 5                              # mism/indels/sclip/slen/seqlen
-                + [u8p2, i32p_, i32p_, i32p_]              # rev/contig/aln_id/read_of
-                + [i64p2, i64p2, i64p2, i32p_, u64p2]      # locs/locs_off/aln_off/mate_of/jitter
-                + [ctypes.c_double, ctypes.c_double, i32, i32, i32]
-                + [i64p2, i64p2]                           # centromeres
-                + [u8p2, u8p2, u8p2, i32p_, i32p_, u8p2]   # active/proper/pick/mapq/molid/amol
-                + [f64p2, f64p2, f64p2, i32p_]             # mconf/mdiff/sum/mate
-                + [i32p_, f64p2, u8p2, i32p_, f64p2]       # sb slot/score/proper/reads/conf
-                + [i32p_] * 4                              # copies/in/out/uniq
-                + [f64p2, i32p_, i32p_]                    # md_score/reads_in_mol/n_mol
-            )
-            lib.rfa_tail.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without the RFA tail
-        try:
-            i32p_c = ctypes.POINTER(ctypes.c_int32)
-            i64p_c = ctypes.POINTER(ctypes.c_int64)
-            u8p_c = ctypes.POINTER(ctypes.c_uint8)
-            lib.cigar_walk_batch.argtypes = [
-                i32p_c, i64p_c,                 # cig, cig_off
-                u8p_c, i64p_c,                  # ref, ref_off
-                u8p_c, i64p_c,                  # read, read_off
-                u8p_c, i64p_c, i64p_c,          # rev, ref_start, ref_end
-                i32p_c,                         # edit_dist
-                ctypes.c_int64,                 # n
-                i32p_c, i64p_c, i32p_c, i32p_c, # counters, locs, rlocs, n
-                ctypes.c_int32,                 # n_threads
-            ]
-            lib.cigar_walk_batch.restype = ctypes.c_int
-        except AttributeError:
-            pass  # stale .so without the cigar walk
-        _lib = lib
-    except Exception:
-        _lib = None
+            _error = "ABI mismatch between ropebwt.cpp and this module"
+            return None
+    except (OSError, RuntimeError, AttributeError) as e:
+        _error = str(e)
+        return None
+    _bind(lib)
+    _lib = lib
     return _lib
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    """Declare argtypes/restype of every exported function."""
+    lib.sais_u8_i64.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.c_int64,
+    ]
+    lib.sais_u8_i64.restype = ctypes.c_int
+    lib.sais_u8_i32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32,
+        ctypes.c_int32,
+    ]
+    lib.sais_u8_i32.restype = ctypes.c_int
+    lib.sais_ref_u8_i64.argtypes = lib.sais_u8_i64.argtypes
+    lib.sais_ref_u8_i64.restype = ctypes.c_int
+    lib.smem_collect_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32),   # words
+        ctypes.c_int64,                    # n_words
+        ctypes.POINTER(ctypes.c_int64),    # occ
+        ctypes.POINTER(ctypes.c_int64),    # L2
+        ctypes.c_int64,                    # primary
+        ctypes.c_int64,                    # seq_len
+        ctypes.POINTER(ctypes.c_uint8),    # qs
+        ctypes.POINTER(ctypes.c_int32),    # qlens
+        ctypes.c_int32,                    # n_reads
+        ctypes.c_int32,                    # L
+        ctypes.c_int32,                    # min_seed_len
+        ctypes.c_int32,                    # split_len
+        ctypes.c_int32,                    # split_width
+        ctypes.c_int64,                    # max_mem_intv
+        ctypes.POINTER(ctypes.c_int64),    # out
+        ctypes.POINTER(ctypes.c_int32),    # out_n
+        ctypes.POINTER(ctypes.c_uint8),    # overflow
+        ctypes.c_int32,                    # MAXS
+        ctypes.c_int32,                    # n_threads
+    ]
+    lib.smem_collect_batch.restype = ctypes.c_int
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i64p_ = ctypes.POINTER(ctypes.c_int64)
+    lib.sa_batch.argtypes = [
+        u32p, ctypes.c_int64, i64p_, i64p_,       # words, n_words, occ, L2
+        ctypes.c_int64, ctypes.c_int64,           # primary, seq_len
+        i64p_, ctypes.c_int64,                    # sampled, sa_intv
+        i64p_, ctypes.c_int64, i64p_,             # rows, n, out
+        ctypes.c_int32,                           # n_threads
+    ]
+    lib.sa_batch.restype = ctypes.c_int
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.chain_batch.argtypes = [
+        i64p, i32p, i32p, i64p,          # mem_s/qb/qe, mem_off
+        i64p, i64p, i32p, i32p, i64p,    # occ rbeg/rid/qbeg/len, occ_off
+        i32p,                            # qlen
+        ctypes.c_int32, ctypes.c_int64,  # n_reads, l_pac
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,   # w, gap, max_occ
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,   # min_w, min_seed, max_ext
+        ctypes.c_double, ctypes.c_double,                  # mask, drop
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,   # a, o_del, e_del
+        ctypes.c_int32, ctypes.c_int32,                    # o_ins, e_ins
+        i32p,                            # out_nchains
+        i64p, i32p, i32p, i32p, f64p, i32p,   # chain pos/rid/w/kept/frac/nseeds
+        i64p, i64p, i32p,                # rmax0, rmax1, seed_idx
+        ctypes.c_int32,                  # n_threads
+    ]
+    lib.chain_batch.restype = ctypes.c_int
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64pp = ctypes.POINTER(ctypes.c_int64)
+    lib.rb_bwt_build.argtypes = [
+        u8p, ctypes.c_int64, u8p, i64pp, i64pp,
+    ]
+    lib.rb_bwt_build.restype = ctypes.c_int
+    lib.sa_sample_walk.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
+        i64pp, i64pp,                       # occ, L2
+        ctypes.c_int64, ctypes.c_int64,     # primary, seq_len
+        ctypes.c_int64, i64pp,              # sa_intv, out
+    ]
+    lib.sa_sample_walk.restype = ctypes.c_int
+    lib.sa_sample_walk_par.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
+        i64pp, i64pp,                       # occ, L2
+        ctypes.c_int64, ctypes.c_int64,     # primary, seq_len
+        ctypes.c_int64, i64pp,              # sa_intv, out
+        u8p,                                # pac2 (2-bit text)
+        ctypes.c_int32, ctypes.c_int32,     # n_chunks, n_threads
+        i64pp,                              # progress
+    ]
+    lib.sa_sample_walk_par.restype = ctypes.c_int
+    i32 = ctypes.c_int32
+    i32p_ = ctypes.POINTER(ctypes.c_int32)
+    i64p2 = ctypes.POINTER(ctypes.c_int64)
+    f64p2 = ctypes.POINTER(ctypes.c_double)
+    u8p2 = ctypes.POINTER(ctypes.c_uint8)
+    u64p2 = ctypes.POINTER(ctypes.c_uint64)
+    lib.rfa_tail.argtypes = (
+        [i32, i32]
+        + [i64p2, i64p2, f64p2, f64p2]            # pos/aend/logp/score
+        + [i32p_] * 5                              # mism/indels/sclip/slen/seqlen
+        + [u8p2, i32p_, i32p_, i32p_]              # rev/contig/aln_id/read_of
+        + [i64p2, i64p2, i64p2, i32p_, u64p2]      # locs/locs_off/aln_off/mate_of/jitter
+        + [ctypes.c_double, ctypes.c_double, i32, i32, i32]
+        + [i64p2, i64p2]                           # centromeres
+        + [u8p2, u8p2, u8p2, i32p_, i32p_, u8p2]   # active/proper/pick/mapq/molid/amol
+        + [f64p2, f64p2, f64p2, i32p_]             # mconf/mdiff/sum/mate
+        + [i32p_, f64p2, u8p2, i32p_, f64p2]       # sb slot/score/proper/reads/conf
+        + [i32p_] * 4                              # copies/in/out/uniq
+        + [f64p2, i32p_, i32p_]                    # md_score/reads_in_mol/n_mol
+    )
+    lib.rfa_tail.restype = ctypes.c_int
+    i32p_c = ctypes.POINTER(ctypes.c_int32)
+    i64p_c = ctypes.POINTER(ctypes.c_int64)
+    u8p_c = ctypes.POINTER(ctypes.c_uint8)
+    lib.cigar_walk_batch.argtypes = [
+        i32p_c, i64p_c,                 # cig, cig_off
+        u8p_c, i64p_c,                  # ref, ref_off
+        u8p_c, i64p_c,                  # read, read_off
+        u8p_c, i64p_c, i64p_c,          # rev, ref_start, ref_end
+        i32p_c,                         # edit_dist
+        ctypes.c_int64,                 # n
+        i32p_c, i64p_c, i32p_c, i32p_c, # counters, locs, rlocs, n
+        ctypes.c_int32,                 # n_threads
+    ]
+    lib.cigar_walk_batch.restype = ctypes.c_int
+
+
 def cigar_walk_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "cigar_walk_batch")
+    return get_lib() is not None
 
 
 def cigar_walk_batch_native(
@@ -250,7 +265,7 @@ def cigar_walk_batch_native(
     mism_n (n,) int32); the locus arrays are indexed at each hit's
     read_off base.  None when the native library is unavailable."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "cigar_walk_batch"):
+    if lib is None:
         return None
     n = len(cig_off) - 1
     counters = np.zeros((n, 6), np.int32)
@@ -289,13 +304,11 @@ def native_threads() -> int:
 
 
 def smem_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "smem_collect_batch")
+    return get_lib() is not None
 
 
 def chain_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "chain_batch")
+    return get_lib() is not None
 
 
 def sais_available() -> bool:
@@ -303,8 +316,7 @@ def sais_available() -> bool:
 
 
 def ropebwt_available() -> bool:
-    lib = get_lib()
-    return lib is not None and hasattr(lib, "rb_bwt_build")
+    return get_lib() is not None
 
 
 def rb_bwt_build_native(
@@ -318,7 +330,7 @@ def rb_bwt_build_native(
     number of processed symbols (poll it from another thread; the ctypes
     call releases the GIL)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "rb_bwt_build"):
+    if lib is None:
         return None
     out = np.zeros((n + 3) // 4, dtype=np.uint8)
     primary = np.zeros(1, dtype=np.int64)
@@ -357,7 +369,7 @@ def sa_sample_walk_native(
     (sa_sample_walk_par; identical output, parity-tested).  Without it,
     the serial single-chain walk."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "sa_sample_walk"):
+    if lib is None:
         return None
     out = np.zeros(seq_len // sa_intv + 1, dtype=np.int64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -365,7 +377,7 @@ def sa_sample_walk_native(
     u8p2 = ctypes.POINTER(ctypes.c_uint8)
     occ_c = np.ascontiguousarray(occ, dtype=np.int64)
     L2_c = np.ascontiguousarray(L2, dtype=np.int64)
-    if pac2 is not None and hasattr(lib, "sa_sample_walk_par"):
+    if pac2 is not None:
         if progress is None:
             progress = np.zeros(1, dtype=np.int64)
         rc = lib.sa_sample_walk_par(

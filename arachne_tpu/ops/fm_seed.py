@@ -1,4 +1,4 @@
-"""Device-side SMEM seeding: the three-pass seed collection as TPU scans.
+"""Device-side SMEM seeding: the three-pass seed collection as device scans.
 
 The reference's seeding (mem_collect_intv, bwamem.c:114-162) is an
 irregular per-read while-loop over FM-index extensions — the #1 hot loop

@@ -1,10 +1,11 @@
 """Multi-host data-parallel execution.
 
 The reference is strictly single-node (goroutines + channels, SURVEY.md 5
-"Distributed communication backend: none").  The TPU-native scale-out:
+"Distributed communication backend: none").  This build's scale-out:
 
-  * ``jax.distributed.initialize`` forms the process group (one process
-    per host of the pod slice);
+  * ``jax.distributed.initialize`` forms the process group, one process
+    per card: a JAX process reserves most of a card's memory when it
+    starts, so processes never share one;
   * the barcode-sorted stream is work-partitioned round-robin by
     superbatch: process ``i`` handles superbatches where
     ``batch_index % num_processes == i`` — no communication needed on the
@@ -45,23 +46,54 @@ def init_distributed(
 
     MUST run before the first jax backend touch (jax.devices / any array
     op) — jax.distributed.initialize silently degrades to a single-process
-    view once a backend is live.  CPU multi-process collectives go through
-    Gloo (jax>=0.9 default), which the 2-process integration test
-    (tests/test_distributed.py) exercises."""
+    view once a backend is live.  Each process is pinned to one card
+    (``local_device_ids``; see local_card).  CPU multi-process collectives
+    go through Gloo (jax>=0.9 default), which the 2-process integration
+    test (tests/test_distributed.py) exercises."""
     if coordinator is None:
         coordinator = os.environ.get("ARACHNE_COORDINATOR")
     if coordinator is None:
         return DistContext()
+    card = local_card(process_id)
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=None if card is None else [card],
     )
     return DistContext(
         process_index=jax.process_index(),
         process_count=jax.process_count(),
         initialized=True,
     )
+
+
+def local_card(process_id: Optional[int]) -> Optional[int]:
+    """The card this process drives: processes are numbered consecutively
+    on each host, one per card, so process i takes card i mod (cards on
+    the host).  None where there is no card to pin (a CPU run)."""
+    if process_id is None or os.environ.get("JAX_PLATFORMS", "") == "cpu":
+        return None
+    cards = gpus_on_host()
+    return process_id % cards if cards else None
+
+
+def gpus_on_host() -> int:
+    """Cards visible to this process, counted without starting a JAX
+    backend: CUDA_VISIBLE_DEVICES when set, else nvidia-smi's list."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return len([d for d in visible.split(",") if d.strip()])
+    import subprocess
+
+    try:
+        p = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return 0
+    return len(p.stdout.split()) if p.returncode == 0 else 0
 
 
 def partition_work(items: Iterator, ctx: DistContext) -> Iterator:

@@ -3,7 +3,7 @@
 The scaling model (SURVEY.md 5, BASELINE.md): barcode buckets/read batches
 are data-parallel across the mesh's ``data`` axis; the FM-index tables are
 either replicated (small genomes) or sharded across the ``index`` axis with
-collective gathers.  No NCCL/MPI translation — XLA collectives over ICI via
+collective gathers.  No hand-written NCCL/MPI — XLA collectives (NCCL over NVLink on GPUs) via
 jax.sharding + jit.
 """
 

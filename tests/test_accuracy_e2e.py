@@ -49,7 +49,8 @@ class TestSimulatedAccuracy:
         if stats.total_mapq10:
             assert stats.correct_mapq10 / stats.total_mapq10 >= 0.99
 
-    def test_tpu_engine_same_accuracy(self, sim):
+    def test_tpu_engine_same_accuracy(self, sim, monkeypatch):
+        monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "1")
         tmp, fasta, r1, r2, n_pairs = sim
         outdir = str(tmp / "out_tpu")
         cli_main(["align", "--sam", "--engine", "tpu", outdir, fasta, r1, r2])

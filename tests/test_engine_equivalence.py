@@ -1,4 +1,4 @@
-"""The batched TPU engine must produce identical barcode results to the
+"""The batched device engine must produce identical barcode results to the
 scalar oracle engine across the full DoRFAForOneBarcode workflow."""
 
 import numpy as np
@@ -76,7 +76,7 @@ class TestEngineEquivalence:
         rng = np.random.default_rng(11)
         recs = make_reads(fwd, rng, n_pairs=8)
         res_oracle = do_rfa_for_one_barcode(idx, CFG, recs, unique_barcode=True)
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         res_tpu = do_rfa_for_one_barcode(
             idx, CFG, recs, unique_barcode=True, extender=engine
         )
@@ -88,7 +88,7 @@ class TestEngineEquivalence:
         rng = np.random.default_rng(5)
         recs = make_reads(fwd, rng, n_pairs=2)
         res_oracle = do_rfa_for_one_barcode(idx, CFG, recs, unique_barcode=True)
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         res_tpu = do_rfa_for_one_barcode(
             idx, CFG, recs, unique_barcode=True, extender=engine
         )
@@ -112,7 +112,7 @@ class TestEngineEquivalence:
                 )
             )
         res_oracle = do_rfa_for_one_barcode(idx, CFG, recs, unique_barcode=True)
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         res_tpu = do_rfa_for_one_barcode(
             idx, CFG, recs, unique_barcode=True, extender=engine
         )
@@ -133,7 +133,7 @@ class TestEngineEquivalence:
             read_info=recs[2].read_info, read_group="",
         )
         res_oracle = do_rfa_for_one_barcode(idx, CFG, recs, unique_barcode=True)
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         res_tpu = do_rfa_for_one_barcode(
             idx, CFG, recs, unique_barcode=True, extender=engine
         )
@@ -157,7 +157,7 @@ class TestSuperbatch:
         singles = [
             do_rfa_for_one_barcode(idx, CFG, recs, uniq) for recs, uniq in sets
         ]
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         batched = process_barcodes(idx, CFG, sets, engine)
         assert len(batched) == len(singles)
         for a, b in zip(singles, batched):
@@ -190,7 +190,7 @@ class TestNativeCigarWalk:
                     del s[40:43]
                     r.read1 = bytes(s) + b"ACG"
             sets.append((recs, True))
-        engine = TpuEngine(idx, CFG)
+        engine = TpuEngine(idx, CFG, device_seeding=True)
         monkeypatch.setenv("ARACHNE_NATIVE_CIGARWALK", "0")
         py = [snapshot(r) for r in process_barcodes(idx, CFG, sets, engine)]
         monkeypatch.setenv("ARACHNE_NATIVE_CIGARWALK", "1")

@@ -74,7 +74,8 @@ class TestIndelEndToEnd:
         assert stats.total >= 2 * n_pairs * 0.95
         assert stats.correct / stats.total >= 0.99, (stats.correct, stats.total)
 
-    def test_device_engine_identical_and_zfetch_fires(self, sim):
+    def test_device_engine_identical_and_zfetch_fires(self, sim, monkeypatch):
+        monkeypatch.setenv("ARACHNE_DEVICE_SEEDING", "1")
         tmp, fasta, r1, r2, _ = sim
         from arachne_tpu.ops import sw_global
 

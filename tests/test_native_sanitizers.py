@@ -32,9 +32,9 @@ class TestNativeSanitized:
         Any heap overflow / UB / data race on the output arrays aborts the
         subprocess."""
         so = str(tmp_path / "_arachne_native_asan.so")
-        srcs = [os.path.join(NATIVE, s) for s in
-                ("sais.cpp", "smem.cpp", "chain.cpp", "ropebwt.cpp",
-                 "rfa_tail.cpp")]
+        import arachne_tpu.native as native_mod
+
+        srcs = [os.path.join(NATIVE, s) for s in native_mod._SOURCES]
         subprocess.run(
             ["g++", "-O1", "-g", "-fsanitize=address,undefined",
              "-fno-sanitize-recover=all", "-shared", "-fPIC", "-pthread",
@@ -108,6 +108,7 @@ class TestThreadedPipeline:
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO
         env["JAX_PLATFORMS"] = "cpu"
+        env["ARACHNE_DEVICE_SEEDING"] = "1"
 
         def run(args):
             p = subprocess.run(

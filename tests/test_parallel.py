@@ -54,7 +54,7 @@ class TestShardedIndex:
 
     def test_occ4_on_2d_mesh(self, idx, rng):
         """(data, index) mesh: tables sharded over 'index', replicated over
-        'data' — the pod-slice layout where reads are data-parallel."""
+        'data' — the layout where reads are data-parallel."""
         import jax
         from jax.sharding import Mesh
 
